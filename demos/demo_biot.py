@@ -20,7 +20,6 @@ import time
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from dolfinx_eqlb_tpu.mesh import unit_square
@@ -36,7 +35,7 @@ from dolfinx_eqlb_tpu.eqlb import (
     check_jump_condition,
     check_weak_symmetry_condition,
 )
-from dolfinx_eqlb_tpu.utils.io import write_xdmf
+from dolfinx_eqlb_tpu.utils.io import write_vtu
 
 
 def f_body(x):
@@ -62,7 +61,7 @@ def main(n=16, order=2):
     # nested red-refinement hierarchy: the primal solve rides a block
     # geometric-multigrid MINRES (diag(A_uu, K_p + M_p, M_pt) V-cycles,
     # models.biot.BiotMG) with mesh-independent iteration counts — the
-    # TPU-native analog of the reference's CG+BoomerAMG / MUMPS configs
+    # device-resident analog of the reference's CG+BoomerAMG / MUMPS configs
     from dolfinx_eqlb_tpu.fem import mesh_hierarchy
 
     nlevels = max(1, int(np.log2(max(n // 4, 1))) + 1)
@@ -113,10 +112,10 @@ def main(n=16, order=2):
     print(f"  weak symmetry of the stress rows: {wsym}")
 
     out = _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
-                        "biot_pressure.xdmf")
+                        "biot_pressure.vtu")
     nv = msh.num_vertices  # P-space dofs 0..nv-1 are the vertex values
-    write_xdmf(out, msh, {"p": np.asarray(ph.x)[:nv],
-                          "pt": np.asarray(pth.x)[:nv]})
+    write_vtu(out, msh, {"p": np.asarray(ph.x)[:nv],
+                         "pt": np.asarray(pth.x)[:nv]})
     print(f"pressures written to {out}")
 
 

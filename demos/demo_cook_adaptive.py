@@ -32,7 +32,6 @@ import argparse
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from dolfinx_eqlb_tpu.mesh import cook_membrane, refine_marked, refine_uniform

@@ -16,7 +16,6 @@ import argparse
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from dolfinx_eqlb_tpu.mesh import unit_square

@@ -1,6 +1,6 @@
 """Demo: H(div)-conforming flux equilibration for a Poisson problem.
 
-TPU-native mirror of the reference ``demo/poisson/demo_reconstruction.py``:
+Batched mirror of the reference ``demo/poisson/demo_reconstruction.py``:
 solve -div(grad u) = f with the manufactured solution
 u = sin(2 pi x) cos(2 pi y), project flux/RHS, equilibrate (SE or EV),
 check the equilibration conditions.
@@ -21,7 +21,6 @@ import time
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from dolfinx_eqlb_tpu.mesh import unit_square, permute_vertices

@@ -1,4 +1,4 @@
-"""dolfinx_eqlb_tpu — a TPU-native flux-equilibration framework.
+"""dolfinx_eqlb_tpu — flux equilibration as one JAX program, run on the GPU.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 ``brodbeck-m/dolfinx_eqlb`` (patch-wise flux and stress equilibration for
@@ -21,7 +21,8 @@ and the estimator integrals — is a batched, jitted XLA program.  Vertex
 patches are bucketed by (cell count, boundary flag) and each cell's element
 tensor is permuted into a canonical patch layout on the host so that patch
 assembly on device is *static* dense block placement (no dynamic scatter)
-followed by one batched LU per bucket.
+followed by one batched LU per bucket.  The programs compile through XLA
+for an NVIDIA GPU in production and for the CPU in the test suite.
 """
 
 import jax

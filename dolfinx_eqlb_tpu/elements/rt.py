@@ -10,7 +10,7 @@ design (the *space* is identical, the dof functionals are better conditioned):
   instead of monomial moments ``s^j`` — under facet reversal (s -> 1-s,
   normal flip) a dof transforms as ``(-1)^(m+1)``, i.e. the reference's
   upper-triangular binomial transformation (``se/KernelData.cpp:46-64``)
-  becomes a diagonal sign, which batches trivially on TPU.
+  becomes a diagonal sign, which batches trivially.
 * cell "divergence" functionals use orthonormal Dubiner modes of P_{k-1}
   (minus the constant) instead of monomials ``x^l y^m`` (reference
   ``e_raviart_thomas.py:104-112``); interior functionals

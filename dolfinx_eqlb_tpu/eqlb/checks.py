@@ -21,6 +21,7 @@ __all__ = [
     "mesh_has_reversed_edges",
     "reconstructed_flux_expr",
     "check_divergence_condition",
+    "divergence_error_scale",
     "check_jump_condition",
     "check_jump_condition_per_facet",
     "check_boundary_conditions",
@@ -69,6 +70,19 @@ def check_divergence_condition(
     if return_error:
         return err
     return err < atol * scale
+
+
+def divergence_error_scale(sigma_eq: Function, sigma_proj: Function) -> float:
+    """Inverse-estimate magnitude max|sigma_R| / h_min of the reconstructed
+    flux.  The divergence residual max|div sigma_R - f| of an f64 result is
+    round-off in dofs amplified by the divergence operator (1/detJ ~ 2 n^2
+    on an n x n crossed square), so ``err / scale`` is the mesh-size
+    comparable accuracy number; h_min = sqrt(2 min|detJ|)."""
+    sig = reconstructed_flux_expr(sigma_eq, sigma_proj)
+    pts, _ = gauss_triangle(2 * sigma_eq.space.degree + 2)
+    vmax = float(jnp.max(jnp.abs(sig.evaluate(pts))))
+    detJ = np.asarray(sigma_eq.space.mesh.detJ)
+    return vmax / float(np.sqrt(2.0 * np.min(np.abs(detJ))))
 
 
 def check_jump_condition(

@@ -16,7 +16,7 @@ scheme computes the identical minimiser of the identical constraint set, so
 one engine serves both).  The sum sigma_R = sum_z sigma_z satisfies
 div(sigma_R) = P_{k-1} f and the prescribed normal traces exactly.
 
-TPU design: one dense KKT system per patch
+Design: one dense KKT system per patch
     [ M  -B^T  0 ] [sigma]   [F_v]
     [ B   0    c ] [  r  ] = [F_q]
     [ 0   c^T  0 ] [ lam ]   [ 0 ]
@@ -28,12 +28,13 @@ assembly is static block placement and the solve one batched LU per bucket.
 Essential dofs stay in the system as identity rows (row replacement, like the
 reference's BC rows ``ev/assembly.hpp:252-266``).
 
-The whole equilibration (every bucket: assembly, batched LU, optional weak
-symmetry, global scatter-add) is ONE jitted XLA program.  All index tables
-and reference tensors are passed into the jit as *device arguments*, never
-as baked constants — the TPU backend here constant-folds gathers over
-constant operands incorrectly, and argument-passing also keeps the compiled
-executable reusable across meshes of identical bucket structure.
+The whole equilibration (every bucket: assembly, batched solves, optional
+weak symmetry, global dof combine) is ONE jitted XLA program, compiled for
+whatever device JAX runs on (the GPU in production, the CPU in tests).  All
+index tables and reference tensors are passed into the jit as *device
+arguments*, never as baked constants: this keeps the compiled executable
+reusable across meshes of identical bucket structure and keeps multi-GB
+tables out of the compiled program.
 """
 
 from __future__ import annotations
@@ -126,9 +127,8 @@ class EqlbEngine:
         pad_quantize: float | None = None,
     ):
         """``dtype``: compute precision of the batched patch solves.  f64 is
-        the default (the 1e-10-level invariant checks need it) but the TPU
-        backend only implements batched LU in f32 — pass jnp.float32 there
-        (bench.py does).
+        the default (the 1e-10-level invariant checks need it); f32 halves
+        the memory traffic at single-precision accuracy of the dofs.
 
         ``pad_to_multiple``: pad every bucket's patch axis to a multiple of
         this (for even sharding across a device mesh).  Pad entries repeat
@@ -136,8 +136,8 @@ class EqlbEngine:
         drops — so padding never perturbs the result.
 
         ``max_patches_per_bucket``: split large buckets into chunks of at
-        most this many patches — bounds the peak HBM of the batched LU temp
-        (a 249k x 57 x 57 f32 LU pads to 7.6 GB on TPU).
+        most this many patches — bounds the peak device memory of the
+        batched temporaries of one bucket program.
 
         ``pad_quantize``: round every bucket's padded patch count up to a
         geometric grid (next power of two below 128 patches, then
@@ -151,21 +151,12 @@ class EqlbEngine:
         self.V = V_flux
         self.k = V_flux.degree
         self.mesh = V_flux.mesh
-        # "pallas": on-chip pivot-free LU (ops.patch_solve) — ~1000x less
-        # HBM traffic than XLA's LuDecomposition custom call; "xla": batched
-        # jnp.linalg.solve (robust default for f64 CPU testing)
-        self.solver = "xla"
-        # f64 residual-correction passes of the "pallas_mixed" solver; the
-        # cached bucket inverses are built through it, so extra steps cost
-        # table-build time only (not steady state)
-        self.mixed_refine_steps = int(os.environ.get("EQLB_MIXED_REFINE", 1))
-        # every bucket's patch axis ends in >= LANE_PAD pad lanes: under
-        # whole-program fusion pressure this backend sporadically poisons
-        # the LAST (8, 128) lane tile of a large bucket pipeline with NaN
-        # (observed at X = 131072: exactly lanes 130944-131071; the isolated
-        # program is bit-clean).  With a full pad tile at the end the
-        # poisoned lanes are never read back (pad entries scatter to
-        # out-of-bounds dofs / are excluded from the combine tables).
+        # every bucket's patch axis ends in >= LANE_PAD pad entries: they
+        # guarded against a miscompile seen on an earlier backend, which
+        # wrote NaN into the last 128 entries of a large fused bucket
+        # pipeline.  Pad entries are never read back (they scatter to
+        # out-of-bounds dofs and are excluded from the combine tables).
+        # Whether the pad is still needed is open (ROADMAP items 1.5, 3.4).
         LANE_PAD = 128
         self._chunk_target = {}
         if max_patches_per_bucket:
@@ -261,11 +252,11 @@ class EqlbEngine:
             self.tables[key] = t
 
         # --- combine tables: gather-based global accumulation ----------------
-        # TPU scatter-add serializes colliding updates (measured 17 ms for a
-        # 1.4M-element scatter at 160k cells); every global dof has at most 3
-        # contributors (2 patches per facet dof, 3 per cell dof), so the
-        # semi-explicit path instead gathers from the concatenated flat
-        # (nflux-major) bucket solutions
+        # every global dof has at most 3 contributors (2 patches per facet
+        # dof, 3 per cell dof), so the semi-explicit path gathers them from
+        # the concatenated flat (nflux-major) bucket solutions instead of
+        # scatter-adding (whether an atomic scatter-add is faster on the GPU
+        # is open, ROADMAP item 1.4)
         ndofs = self.V.ndofs
         total = sum(
             int(np.prod(self.tables[key]["gdofs"].shape))
@@ -277,11 +268,9 @@ class EqlbEngine:
         cur = np.zeros(ndofs, dtype=np.uint8)
         use_native = native.available()
         off = 0
-        self._flat_offsets = {}
         for key in sorted(self.tables.keys()):
             g = self.tables[key]["gdofs"]  # (Ppad, nflux)
             Ppad, nflux = g.shape
-            self._flat_offsets[key] = off
             if use_native:
                 native.combine_fill(ndofs, off, g, src, cur)
             else:
@@ -302,267 +291,29 @@ class EqlbEngine:
                 src[sg, poscol] = si
                 np.add.at(cur, gd, 1)
             off += Ppad * nflux
-        self._flat_len = off
-        # gather-by-128-row layout: fetch full 128-lane rows (bandwidth-bound
-        # XLA gather), select lanes in a Pallas epilogue (ops.lane_select).
-        # The TPU gather is INDEX-RATE-bound (~100-200M idx/s, measured
-        # locality-independent), so for n_rhs > 1 the combine switches to a
-        # batched element gather on (n_rhs, L): one index fetches the column
-        # for every RHS at the same per-index cost as one (measured: a
-        # (3, 12M)[:, 10M-idx] gather costs the same 107 ms as 1-RHS)
         nfk = self.V.mesh.num_facets * self.k
         assert np.all(src[:nfk, 2] == total), "facet dof with 3 contributors"
-        self._combine = dict(
-            Lpad=self._lpad(), nfk=nfk,
-            src01=src[:, :2].copy(), src2=src[nfk:, 2:].copy(), total=total,
-        )
-        # even k: patch-major PAIR tables halve the gather index count (the
-        # TPU gather is index-rate-bound) — one fetched row serves both dofs
-        # of a facet/cell pair.  Falls back to the flux-major per-dof layout
-        # when the structural preconditions don't hold (odd k, exotic meshes)
-        self._patch_major = (
-            self.k % 2 == 0
-            and not os.environ.get("EQLB_NO_PAIRED_COMBINE")
-            and self._build_paired_tables()
-        )
-        if not self._patch_major:
-            cm = self._combine
-            cm["rows01"], cm["lane01"] = self._shaped_tables(src[:, :2])
-            cm["rows2"], cm["lane2"] = self._shaped_tables(src[nfk:, 2:])
+        # facet dofs have exactly 2 contributors, cell dofs 3: the combine
+        # gathers columns 0 and 1 for every dof and column 2 for cell dofs
+        self._combine = dict(nfk=nfk, src01=src[:, :2], src2=src[nfk:, 2:])
 
         self._dev = None
         self._ref_dev = None
         self._jit_eq = None
-        self._have_elem_combine = False
-        self._packed_R = set()
 
-    def _lpad(self, R: int = 1) -> int:
-        """Padded flat-position count of the R-packed layout: positions per
-        128-lane row is W = 128 // R; the pad slot (index ``total``) must be
-        addressable (and read zero)."""
-        W = 128 // R
-        return -(-(self._flat_len + 1) // W) * W
+    @property
+    def solver(self) -> str:
+        """The batched dense solves are XLA's ``jnp.linalg.solve``; this is
+        the only solver the engine has."""
+        return "xla"
 
-    def _shaped_tables(self, s, R: int = 1):
-        """(rows_flat, lane) combine index tables for the R-packed flat
-        layout: flat element of (position p, rhs r) lives at row p // W,
-        lane (p % W) * R + r with W = 128 // R."""
-        W = 128 // R
-        from .. import native
-
-        out = native.shaped_tables(np.ascontiguousarray(s, np.int32), W, R)
-        if out is not None:
-            return out
-        M, C = s.shape
-        pad = (-M) % 1024
-        s = np.pad(s, ((0, pad), (0, 0)))  # pads read row 0, sliced away
-        lane = ((s % W) * R).reshape(-1, 8, 128, C)
-        return (
-            (s // W).reshape(-1).astype(np.int32),  # pre-flattened
-            np.ascontiguousarray(np.moveaxis(lane, 3, 1)).astype(np.int32),
-        )
-
-    def _build_paired_tables(self) -> bool:
-        """Patch-major pair tables for the combine (even k only).
-
-        In a PATCH-MAJOR flat layout (position = off + p * nflux + f) a
-        patch's flux dofs are contiguous, so the k dofs of one facet — and
-        the k(k-1) interior dofs of one cell — occupy consecutive positions.
-        Global dofs are facet-major (d = facet * k + j) and cell-major, so
-        output dofs ALSO come in adjacent pairs whose contributor positions
-        are adjacent: one gathered 128-lane row serves BOTH dofs of a pair
-        via the lane-select kernel's +1 offset read (lane_select_multi).
-        This halves the gather index count, which is what the TPU gather's
-        throughput is bound by (~220M idx/s, measured locality-independent).
-
-        Evenness of k makes every run (k per facet, k(k-1) per cell) and
-        every block offset even, so pairs never straddle a 128-lane row.
-        Contributor columns are ordered by GLOBAL PATCH ID (pair-invariant,
-        unlike the flux-major (p, f) insertion order), so both dofs of a
-        pair see the same patch in the same column.  Returns False — leaving
-        the flux-major per-dof layout active — if any precondition fails;
-        every condition is re-checked against the actual tables."""
-        ndofs = self.V.ndofs
-        nfk = self._combine["nfk"]
-        if ndofs % 2 or nfk % 2:
-            return False
-        gd_l, pos_l, pid_l = [], [], []
-        offP = 0
-        base = 0
-        flatP_off = {}
-        for key in sorted(self.tables.keys()):
-            g = self.tables[key]["gdofs"]
-            Ppad, nflux = g.shape
-            if nflux % 2 or offP % 2:
-                return False
-            flatP_off[key] = offP
-            pp, ff = np.nonzero((g >= 0) & (g < ndofs))
-            gd_l.append(g[pp, ff].astype(np.int64))
-            pos_l.append(offP + pp.astype(np.int64) * nflux + ff)
-            pid_l.append(base + pp.astype(np.int64))
-            offP += Ppad * nflux
-            base += Ppad
-        gd = np.concatenate(gd_l)
-        pos = np.concatenate(pos_l)
-        pid = np.concatenate(pid_l)
-        order = np.lexsort((pid, gd))
-        gd, pos = gd[order], pos[order]
-        col = np.arange(len(gd)) - np.searchsorted(gd, gd, side="left")
-        if len(col) and col.max() > 2:
-            return False
-        srcP = np.full((ndofs, 3), -1, np.int64)
-        srcP[gd, col] = pos
-        if ((srcP[:, :2] < 0).any() or (srcP[nfk:, 2] < 0).any()
-                or (srcP[:nfk, 2] >= 0).any()):
-            return False
-        ev, od = srcP[0::2], srcP[1::2]
-        if (ev[:, :2] % 2).any() or (od[:, :2] != ev[:, :2] + 1).any():
-            return False
-        c2e, c2o = srcP[nfk::2, 2], srcP[nfk + 1:: 2, 2]
-        if (c2e % 2).any() or (c2o != c2e + 1).any():
-            return False
-        cm = self._combine
-        # elem-gather combine reads the full per-dof tables (now in
-        # patch-major positions); the row-gather paths read the halved
-        # PAIR tables (base position of each 2-run)
-        cm["src01"] = srcP[:, :2].astype(np.int32)
-        cm["src2"] = srcP[nfk:, 2:3].astype(np.int32)
-        cm["pair01"] = np.ascontiguousarray(ev[:, :2]).astype(np.int32)
-        cm["pair2"] = np.ascontiguousarray(c2e[:, None]).astype(np.int32)
-        cm["rows01"], cm["lane01"] = self._shaped_tables(cm["pair01"])
-        cm["rows2"], cm["lane2"] = self._shaped_tables(cm["pair2"])
-        self._flatP_offsets = flatP_off
-        return True
-
-    def _use_elem_combine(self, n_rhs: int) -> bool:
-        """The batched element-gather combine is used for f64 engines on
-        TPU (Mosaic kernels are f32-only) and for EVERYTHING off-TPU: the
-        row-gather path's Pallas lane select only runs in interpret mode
-        there and dominates CPU wall-clock ~50x (the elem path is pure
-        XLA).  EQLB_FORCE_LANE_SELECT=1 restores the row+kernel path
-        off-TPU for interpret-mode kernel coverage in tests."""
-        import os
-
-        if self._use_ds_combine(n_rhs):
-            return False
-        if jax.default_backend() != "tpu":
-            return "EQLB_FORCE_LANE_SELECT" not in os.environ
-        return self.dtype == jnp.float64
-
-    def _use_ds_combine(self, n_rhs: int) -> bool:
-        """Double-single combine for f64 data: the flat solution rides the
-        index-rate-bound row gather as (hi, lo) f32 lane-plane pairs — the
-        R = 2 lane-packed PAIRED tables, i.e. the 1-field f32 index count —
-        and is reconstructed in f64 afterwards (exact to ~2^-48: the
-        contributor sum is 2Sum-compensated in the select kernel,
-        ops.lane_select_ds).  Replaces the emulated-f64 element gather on
-        TPU, the dominant cost of the mixed-precision path
-        (BENCH_MIXED_r04: 519.9 ms vs 80.7 ms f32)."""
-        import os
-
-        return (
-            n_rhs == 1
-            and self.dtype == jnp.float64
-            and self._patch_major
-            and not os.environ.get("EQLB_NO_DS_COMBINE")
-            and (jax.default_backend() == "tpu"
-                 or "EQLB_FORCE_LANE_SELECT" in os.environ)
-        )
-
-    # Largest lane-packed combine source (R x padded flat f32) that still
-    # rides the TPU gather's fast regime: row-fetch throughput drops ~3x
-    # once the source outgrows the chip's ~128 MB last-level cache
-    # (PROFILE_COMBINE_STRATEGIES.json at 1M cells: one R = 3 pass with a
-    # 146 MB source takes 180 ms where 3 cache-resident per-field passes
-    # take 125 ms and R2 + R1 132 ms).
-    _pack_src_bytes_max = 120e6
-
-    def _pack_groups(self, n_rhs: int):
-        """Sizes of the successive lane-packed passes serving n_rhs fields
-        (in field order; 1 = plain per-field paired pass).
-
-        A single R = n_rhs pass needs only the 1-field index count — one
-        gathered row serves 2 dofs x R RHS — but its packed source is R x
-        the field size.  Past the cache cliff (_pack_src_bytes_max) the
-        row fetches slow ~3x, so the plan greedily takes the largest pack
-        whose source stays cache-resident.  Exception at rem == 3: three
-        per-field passes measured faster than R2 + R1 (consecutive passes
-        over the SAME index tables keep them cache-warm)."""
-        if n_rhs <= 1:
-            return [1] * n_rhs
-        itemsize = np.dtype(np.float32).itemsize  # packed path is f32-only
-
-        def fits(R):
-            # actual packed-source footprint: non-divisor R (e.g. 3) pads
-            # every W-position row out to 128 lanes (_packed_combine), so
-            # size from the real row count, not R * Lpad
-            rows = self._lpad(R) // (128 // R)
-            return rows * 128 * itemsize <= self._pack_src_bytes_max
-
-        groups = []
-        rem = n_rhs
-        while rem >= 2:
-            R = max((g for g in (4, 3, 2) if g <= rem and fits(g)),
-                    default=0)
-            if R == 0 or (rem == 3 and R == 2):
-                break
-            groups.append(R)
-            rem -= R
-        groups.extend([1] * rem)
-        return groups
-
-    def _pack_plan(self, n_rhs: int):
-        """R values of the lane-packed row-gather passes serving n_rhs
-        fields (mirrors the _combine_flat dispatch)."""
-        if n_rhs < 2 or self._use_elem_combine(n_rhs):
-            return []
-        if not self._patch_major:
-            return [2]
-        return sorted({g for g in self._pack_groups(n_rhs) if g >= 2})
-
-    def _ensure_combine_tables(self, n_rhs: int):
-        """Upload the extra combine index tables the n_rhs > 1 paths need
-        (lazy).  n_rhs >= 2 routes through lane-packed row gathers sized
-        by _pack_groups (cache-resident packs, pairwise R=2 when
-        unpaired); f64 / off-TPU use the element gather."""
-        elem = self._use_elem_combine(n_rhs)
-        # the double-single f64 path rides the R = 2 pair tables; it serves
-        # n_rhs == 1 directly and any 1-field slice the multi-field pack
-        # plan recurses into
-        needs_ds = self._use_ds_combine(1) and (
-            n_rhs == 1
-            or (not elem and self._patch_major
-                and 1 in self._pack_groups(n_rhs))
-        )
-        if needs_ds and 2 not in self._packed_R:
-            _, refd = self._device_tables()
-            cm = self._combine
-            for nm in ("01", "2"):
-                rows, lane = self._shaped_tables(cm["pair" + nm], 2)
-                refd[f"rows{nm}R2"] = jnp.asarray(rows, jnp.int32)
-                refd[f"lane{nm}R2"] = jnp.asarray(lane, jnp.int32)
-            self._packed_R.add(2)
-        if n_rhs <= 1 and not elem:
-            return
-        _, refd = self._device_tables()
-        cm = self._combine
-        if not elem and n_rhs >= 2:
-            src_nm = "pair" if self._patch_major else "src"
-            for R in self._pack_plan(n_rhs):
-                if R in self._packed_R:
-                    continue
-                for nm in ("01", "2"):
-                    rows, lane = self._shaped_tables(cm[src_nm + nm], R)
-                    refd[f"rows{nm}R{R}"] = jnp.asarray(rows, jnp.int32)
-                    refd[f"lane{nm}R{R}"] = jnp.asarray(lane, jnp.int32)
-                self._packed_R.add(R)
-            return
-        if self._have_elem_combine:
-            return
-        refd["elem_c0"] = jnp.asarray(cm["src01"][:, 0], jnp.int32)
-        refd["elem_c1"] = jnp.asarray(cm["src01"][:, 1], jnp.int32)
-        refd["elem_c2"] = jnp.asarray(cm["src2"][:, 0], jnp.int32)
-        self._have_elem_combine = True
+    @solver.setter
+    def solver(self, value: str):
+        if value != "xla":
+            raise ValueError(
+                f"solver {value!r} was removed: the batched patch solves "
+                "always run through XLA (jnp.linalg.solve)"
+            )
 
     # --- device-resident tables (passed as jit *arguments*) -----------------
 
@@ -575,12 +326,10 @@ class EqlbEngine:
         for key, t in self.tables.items():
             b = self.buckets[key]
             cells = t.get("cells", b.cells)
-            # lean upload: only the batch-last tables of the (default) fused
-            # semi-explicit path — the patch axis sits on the TPU lane
-            # dimension, so the tiny element dims never hit the (8, 128)
-            # tile padding.  The batch-major twins (J, perm, gdofs, ...) are
-            # only needed by the legacy KKT / unfused paths and are uploaded
-            # lazily by _ensure_full_tables (halves upload volume and time).
+            # lean upload: only the batch-last tables (patch axis last) of
+            # the default fused semi-explicit path.  The batch-major twins
+            # (J, perm, gdofs, ...) are only needed by the KKT / unfused
+            # paths and are uploaded lazily by _ensure_full_tables.
             d = {
                 "divdiag": jnp.asarray(t["divdiag"], dt),
                 "J_bl": jnp.asarray(
@@ -608,14 +357,11 @@ class EqlbEngine:
             name: jnp.asarray(arr, dt) for name, arr in self.ref.items()
         }
         refd["hat_grads"] = jnp.asarray(_HAT_GRADS, dt)
-        # combine index tables: uploaded once; the fused program slices
-        # <=1536-group segments out of them in-jit (static bounds) when the
-        # whole-table gather's live intermediate would exceed the HBM budget
-        for nm in ("01", "2"):
-            refd["rows" + nm] = jnp.asarray(self._combine["rows" + nm],
-                                            jnp.int32)
-            refd["lane" + nm] = jnp.asarray(self._combine["lane" + nm],
-                                            jnp.int32)
+        # combine index tables (see _combine_flat)
+        cm = self._combine
+        refd["elem_c0"] = jnp.asarray(cm["src01"][:, 0], jnp.int32)
+        refd["elem_c1"] = jnp.asarray(cm["src01"][:, 1], jnp.int32)
+        refd["elem_c2"] = jnp.asarray(cm["src2"][:, 0], jnp.int32)
         from .semiexplicit import (
             combo_tensors, mass_matrices_bl, reduced_system_bl,
         )
@@ -659,8 +405,6 @@ class EqlbEngine:
             out = geom_jit[sig](dev[key], refd)
             dev[key]["Mc_bl"] = out[0]
             dev[key]["Az_bl"] = out[1]
-            import os
-
             if len(out) == 3 and "EQLB_DISABLE_AINV" not in os.environ:
                 dev[key]["Ainv_bl"] = out[2]
         self._dev, self._ref_dev = dev, refd
@@ -754,16 +498,10 @@ class EqlbEngine:
         dev, refd = self._device_tables()
         npatches = sum(b.npatches for b in self.buckets.values())
         if fuse is None:
-            # one fused XLA program minimises dispatch overhead; with the
-            # Pallas solver it also fits memory at any size (no padded
-            # LuDecomposition temps).  The XLA-LU path rematerialises under
-            # memory pressure at large patch counts, so it dispatches one
-            # executable per bucket chunk there.
-            fuse = (
-                self.mode == "semiexplicit"
-                or (self.solver == "pallas")
-                or npatches <= 150_000
-            )
+            # one fused XLA program minimises dispatch overhead; the dense
+            # KKT path rematerialises under memory pressure at large patch
+            # counts, so it dispatches one executable per bucket there
+            fuse = self.mode == "semiexplicit" or npatches <= 150_000
         ws_skip = None
         if weak_symmetry and ws_skip_nodes is not None and len(ws_skip_nodes):
             ws_skip = {}
@@ -788,11 +526,8 @@ class EqlbEngine:
         if fuse and self.mode == "semiexplicit":
             if weak_symmetry:
                 self.ensure_stress_caches()
-            n_rhs = sigma_proj_dofs.shape[0]
-            self._ensure_combine_tables(n_rhs)
-            # transpose to batch-last on the host when possible: a device
-            # transpose reads the tile-padded batch-major layout (0.65 GB
-            # for a 160k-cell mesh's 15 MB of data)
+            # transpose to batch-last on the host for host data; device
+            # data is transposed on the device
             if transposed_inputs:
                 dpT, drT = sigma_proj_dofs, rhs_dofs
             elif isinstance(sigma_proj_dofs, np.ndarray):
@@ -862,7 +597,7 @@ class EqlbEngine:
             # pads are solved too and scatter out of bounds — so reuse is
             # keyed on the PADDED patch count only
             jkey = (
-                self.k, str(np.dtype(self.dtype)), self.mode, self.solver,
+                self.k, str(np.dtype(self.dtype)), self.mode,
                 key[:2], self.tables[key]["J"].shape[0], weak_symmetry,
             )
             fn = _UNFUSED_JIT_CACHE.get(jkey)
@@ -914,39 +649,23 @@ class EqlbEngine:
         self, dpT, drT, facet_kind, bvals, dev, refd, ws_skip,
         weak_symmetry,
     ):
-        # NOTE: full f32 matmul precision is load-bearing — the TPU default
-        # demotes f32 einsum contractions to one bf16 pass, which put a
-        # 2.7e-3 relative error on the equilibrated dofs (measured in
-        # scripts/onchip_accuracy.py before the fix)
+        # NOTE: full f32 matmul precision is load-bearing (see
+        # _equilibrate_impl_T): a reduced-precision contraction (TF32 on the
+        # GPU) would put a ~1e-3 relative error on the equilibrated dofs
         from .semiexplicit import solve_bucket_semiexplicit
         from .stress import weak_symmetry_bucket
 
         n_rhs = dpT.shape[0]
         dprT = jnp.concatenate([dpT, drT[:, None]], axis=1)
         # cell-major copy of the per-cell dof data, shared by every bucket's
-        # row gather (see load_moments_bl).  Padded to exactly 128 lanes:
-        # XLA only lowers the gather as a vectorized full-tile row fetch
-        # when the source minor dim is the native 128-lane tile (measured:
-        # the 27-lane form runs at the same 14 ns/element as the old
-        # minor-axis gather)
+        # row gather (see load_moments_bl): one gathered row holds every
+        # field's moments of a cell.  The pad to 128 columns was sized for
+        # an earlier backend's gather; whether it pays on the GPU is open
+        # (ROADMAP item 1.5)
         nc = dprT.shape[-1]
         w = dprT.shape[1] * dprT.shape[2] * n_rhs
-        # n_rhs == 1 keeps the minor-axis gather: 9 source rows stay under
-        # the slow-lowering threshold and measure 44 ms vs 64 ms packed
-        if dprT.dtype == jnp.float64 and self._use_ds_combine(1) \
-                and 2 * w <= 128:
-            # double-single source: the f64 per-cell data rides the row
-            # gather as [hi | lo] f32 halves (exact split) and is
-            # reconstructed in f64 after the gather — the emulated-f64
-            # gather was a dominant mixed-path cost (load_moments_bl)
-            hi = dprT.astype(jnp.float32).reshape(-1, nc)
-            lo = (dprT - hi.astype(jnp.float64).reshape(dprT.shape)).astype(
-                jnp.float32).reshape(-1, nc)
-            src_packed = jnp.moveaxis(
-                jnp.concatenate([hi, lo], axis=0), 0, 1)
-            src_packed = jnp.pad(src_packed, ((0, 0), (0, 128 - 2 * w)))
-            src_packed = jax.lax.optimization_barrier(src_packed)
-        elif 1 < n_rhs and w <= 128:
+        # n_rhs == 1 keeps the minor-axis gather
+        if 1 < n_rhs and w <= 128:
             src_packed = jnp.moveaxis(dprT.reshape(-1, nc), 0, 1)
             src_packed = jnp.pad(src_packed, ((0, 0), (0, 128 - w)))
             src_packed = jax.lax.optimization_barrier(src_packed)
@@ -958,10 +677,9 @@ class EqlbEngine:
                 self, key, dprT, facet_kind, bvals, dev[key], refd,
                 src_packed=src_packed,
             )
-            # fusion fence: under whole-program fusion pressure this backend
-            # miscompiles one lane tile of the bucket pipeline to NaN (the
-            # isolated bucket program is bit-clean) — keep bucket pipelines
-            # from fusing into each other / the combine
+            # fusion fence: guarded against a miscompile seen on an earlier
+            # backend (NaN in one bucket pipeline fused with its
+            # neighbours); whether it is still needed is open (ROADMAP 1.5)
             sol_bl = jax.lax.optimization_barrier(sol_bl)
             if weak_symmetry:
                 if "Bsym_bl" in dev[key]:
@@ -981,12 +699,7 @@ class EqlbEngine:
                         dev[key], refd,
                     )
                     sol_bl = sol_bl.at[:2].add(jnp.moveaxis(delta, 1, -1))
-            if self._patch_major:
-                # paired combine tables address PATCH-MAJOR positions
-                # (off + p * nflux + f): transpose the batch-last solution
-                flats.append(jnp.moveaxis(sol_bl, -1, 1).reshape(n_rhs, -1))
-            else:
-                flats.append(sol_bl.reshape(n_rhs, -1))
+            flats.append(sol_bl.reshape(n_rhs, -1))
         flat = jnp.concatenate(flats, axis=1)
         if os.environ.get("EQLB_SKIP_COMBINE"):
             # timing diagnostic ONLY: drop the dof-combine program tail
@@ -996,222 +709,15 @@ class EqlbEngine:
 
     def _combine_flat(self, flat, refd):
         """Global accumulation of the concatenated flat bucket solutions
-        (n_rhs, L) -> (n_rhs, ndofs).
-
-        Measured-fastest paths (the TPU gather runs ~220M idx/s while its
-        source stays cache-resident and drops to ~133M idx/s past a cliff
-        near 128 MB — measured on v5e with the real index tables):
-        * n_rhs == 1 — row gather + Pallas lane select (row fetches process
-          ~2x the indices/s of element gathers; source ~50 MB at 1M cells);
-          with PAIR tables (even k, see _build_paired_tables) each index
-          serves 2 adjacent dofs, halving the index count again;
-        * n_rhs >= 2 with PAIR tables — lane-packed passes sized by
-          _pack_groups: rows hold 128 // R positions x R RHS lanes, so one
-          index serves 2 dofs x R RHS (2R offset lanes per select) and an
-          R = n_rhs pass has the 1-field index count.  Pack sizes are
-          capped so each pass's source stays under the cache cliff
-          (3-field at 1M cells: one R=3 pass 180 ms -> 3 per-field passes
-          125 ms, PROFILE_COMBINE_STRATEGIES.json);
-        * unpaired (odd k) — pairwise R=2 passes (unpaired R=3 measured
-          192 ms vs ~100 ms pairwise: without pairs the extra lanes per
-          row buy nothing and the source grows past the cliff);
-        * measured dead ends at 3 RHS / 1M cells (PROFILE_COMBINE_V2 /
-          _ELEM3): a single rhs-BLOCK packed pass 164 ms (the pack alone
-          is ~35 ms at ~6 GB/s — minor-dim composition is slow on this
-          backend), chunk-permuted cache-resident source segments 161 ms
-          (slicing eats what residency saves), batched element gather
-          204 ms (its cost is NOT n_rhs-independent end-to-end).  The
-          per-field paired passes below are the practical floor;
-        * f64-on-TPU / off-TPU — batched element gathers (pure XLA; the
-          elem tables follow whichever flat layout is active)."""
-        n_rhs = flat.shape[0]
+        (n_rhs, L) -> (n_rhs, ndofs) by an element gather: every dof sums
+        its two facet-patch contributions (columns 0, 1) and, for cell
+        dofs, a third (column 2).  Missing contributors read the zero pad
+        slot at position L."""
         cm = self._combine
-        ndofs = self.V.ndofs
-        paired = self._patch_major
-
-        if flat.dtype == jnp.float64 and self._use_ds_combine(n_rhs):
-            return self._ds_combine(flat, refd)
-
-        if self._use_elem_combine(n_rhs):
-            flat = jnp.pad(flat, ((0, 0), (0, cm["Lpad"] - flat.shape[1])))
-            gA = flat[:, refd["elem_c0"]]
-            gB = flat[:, refd["elem_c1"]]
-            g2 = flat[:, refd["elem_c2"]]
-            x = gA + gB
-            return x.at[:, cm["nfk"] :].add(g2)
-
-        if n_rhs >= 2 and paired:
-            groups = self._pack_groups(n_rhs)
-            if groups == [n_rhs]:
-                return self._packed_combine(flat, refd)
-            parts, r = [], 0
-            for g in groups:
-                if g >= 2:
-                    parts.append(self._packed_combine(flat[r: r + g], refd))
-                else:
-                    parts.append(self._combine_flat(flat[r: r + 1], refd))
-                r += g
-            return jnp.concatenate(parts, axis=0)
-
-        if n_rhs >= 3:
-            parts = [
-                self._combine_flat(flat[r: r + 2], refd)
-                for r in range(0, n_rhs, 2)
-            ]
-            return jnp.concatenate(parts, axis=0)
-
-        if n_rhs == 2:
-            Lpos = self._lpad(2)
-            flat = jnp.pad(flat, ((0, 0), (0, Lpos - flat.shape[1])))
-            # 64 positions x 2 RHS lanes per 128-lane row
-            f2p = jnp.moveaxis(flat, 0, 1).reshape(-1, 128)
-
-            def pick2(nm, npos):
-                out = self._row_gather_select(
-                    f2p, refd[f"rows{nm}R2"], refd[f"lane{nm}R2"], 2,
-                    flat.dtype)
-                return out[:, :npos]
-
-            x = pick2("01", ndofs)
-            tail = pick2("2", ndofs - cm["nfk"])
-            return x.at[:, cm["nfk"] :].add(tail)
-
-        # n_rhs == 1
-        flat = jnp.pad(flat, ((0, 0), (0, cm["Lpad"] - flat.shape[1])))
-        f2 = flat.reshape(-1, 128)
-        n_out = 2 if paired else 1  # paired: both dofs of the pair per index
-
-        def pick1(nm, npos):
-            out = self._row_gather_select(
-                f2, refd["rows" + nm], refd["lane" + nm], n_out, flat.dtype)
-            if not paired:
-                return out[:, :npos]
-            return jnp.moveaxis(out, 0, -1).reshape(1, -1)[:, :npos]
-
-        x = pick1("01", ndofs)
-        tail = pick1("2", ndofs - cm["nfk"])
-        return x.at[:, cm["nfk"] :].add(tail)
-
-    def _packed_combine(self, flat, refd):
-        """One R = n_rhs lane-packed PAIRED pass: (R, L) -> (R, ndofs).
-
-        Rows of the packed layout hold W = 128 // R positions x R RHS lanes
-        (position-major), so flat element (position p, rhs r) sits at lane
-        (p % W) * R + r.  Pair positions are adjacent and W is even for
-        R <= 4, so the pair partner shares the row: one gathered row serves
-        2 dofs x R RHS via the 2R consecutive select offsets o = m * R + r
-        (m = pair member).  The index count for all R fields equals the
-        1-field paired count."""
-        R = flat.shape[0]
-        cm = self._combine
-        ndofs = self.V.ndofs
-        W = 128 // R
-        assert W % 2 == 0, "pair partner would straddle a packed row"
-        Lpos = self._lpad(R)
-        flat = jnp.pad(flat, ((0, 0), (0, Lpos - flat.shape[1])))
-        f2p = jnp.moveaxis(flat, 0, 1).reshape(-1, W * R)
-        if W * R < 128:  # non-divisor R (e.g. 3): dead trailing lanes
-            f2p = jnp.pad(f2p, ((0, 0), (0, 128 - W * R)))
-
-        def pick(nm, npos):
-            out = self._row_gather_select(
-                f2p, refd[f"rows{nm}R{R}"], refd[f"lane{nm}R{R}"], 2 * R,
-                flat.dtype)
-            # out[m * R + r, j] = pair member m, RHS r of pair j:
-            # interleave the pair axis into the dof axis
-            arr = out.reshape(2, R, -1)
-            return jnp.moveaxis(arr, 0, -1).reshape(R, -1)[:, :npos]
-
-        x = pick("01", ndofs)
-        tail = pick("2", ndofs - cm["nfk"])
-        return x.at[:, cm["nfk"] :].add(tail)
-
-    def _ds_combine(self, flat, refd):
-        """Double-single 1-field combine: (1, L) f64 -> (1, ndofs) f64.
-
-        The f64 flat solution is split exactly into (hi, lo) f32 planes
-        (hi = f32(v), lo = f32(v - hi): |v - hi - lo| <= 2^-48 |v|), which
-        ride the R = 2 lane-packed PAIRED layout — plane r of position p at
-        lane (p % 64) * 2 + r, so one gathered 128-lane f32 row serves both
-        dofs of a pair x both planes with the 1-field index count.  The
-        select kernel 2Sum-compensates the contributor additions
-        (ops.lane_select_ds) and the f64 value is reconstructed afterwards;
-        the contributor-class add happens in f64."""
-        cm = self._combine
-        ndofs = self.V.ndofs
-        Lpos = self._lpad(2)
-        hi = flat.astype(jnp.float32)
-        lo = (flat - hi.astype(jnp.float64)).astype(jnp.float32)
-        planes = jnp.concatenate([hi, lo], axis=0)  # (2, L) f32
-        planes = jnp.pad(planes, ((0, 0), (0, Lpos - flat.shape[1])))
-        f2p = jnp.moveaxis(planes, 0, 1).reshape(-1, 128)
-
-        def pick(nm, npos):
-            # base offsets 2m address pair member m's (hi, lo) lane pair
-            out = self._row_gather_select_ds(
-                f2p, refd[f"rows{nm}R2"], refd[f"lane{nm}R2"], (0, 2))
-            vals = [out[2 * m].astype(jnp.float64)
-                    + out[2 * m + 1].astype(jnp.float64) for m in (0, 1)]
-            xy = jnp.stack(vals)  # (2 = pair member, npairs)
-            return jnp.moveaxis(xy, 0, -1).reshape(1, -1)[:, :npos]
-
-        x = pick("01", ndofs)
-        tail = pick("2", ndofs - cm["nfk"])
-        return x.at[:, cm["nfk"]:].add(tail)
-
-    def _row_gather_select_ds(self, f2, rows_all, lane_all, base_offs):
-        """Segmented row gather + double-single select epilogue: like
-        _row_gather_select but emitting a 2Sum-compensated (hi, lo) f32
-        plane pair per base offset.  Returns (2 * len(base_offs), G * 1024)
-        f32."""
-        from ..ops.lane_select import lane_select_ds
-
-        G, C = lane_all.shape[0], lane_all.shape[1]
-        if G == 0:
-            return jnp.zeros((2 * len(base_offs), 0), jnp.float32)
-        gseg = G
-        if G * 1024 * C * 512 > (6 << 30):
-            gseg = 4096
-        segs = []
-        for g0 in range(0, G, gseg):
-            g1 = min(g0 + gseg, G)
-            rows_flat = jax.lax.slice_in_dim(
-                rows_all, g0 * 1024 * C, g1 * 1024 * C)
-            lane = jax.lax.slice_in_dim(lane_all, g0, g1)
-            rg = f2[rows_flat].reshape(g1 - g0, 8, 128, C, 128)
-            segs.append(lane_select_ds(rg, lane, base_offs))
-        out = segs[0] if len(segs) == 1 else jnp.concatenate(segs, axis=1)
-        return out.reshape(2 * len(base_offs), -1)
-
-    def _row_gather_select(self, f2, rows_all, lane_all, n_out, dtype):
-        """Segmented 128-lane row gather + Pallas lane select epilogue.
-
-        Fetches full rows ``f2[rows]`` (flat-index gather — the TPU backend
-        rejects >2D index arrays) reshaped to the select kernel's
-        (G, 8, 128, C, 128) layout, then emits ``n_out`` consecutive lanes
-        per index (lane_select_multi offsets serve pair partners and packed
-        RHS lanes).  The index tables are sliced in-jit (static bounds)
-        into bounded segments when needed so the gathered-row intermediate
-        stays bounded (one unsegmented gather holds ~5 GB at 1M cells and
-        OOMs).  Returns (n_out, G * 1024)."""
-        from ..ops.lane_select import lane_select_multi
-
-        G, C = lane_all.shape[0], lane_all.shape[1]
-        if G == 0:  # empty contributor class (e.g. no cell dofs at k=1)
-            return jnp.zeros((n_out, 0), dtype)
-        gseg = G
-        if G * 1024 * C * 512 > (6 << 30):
-            gseg = 4096
-        segs = []
-        for g0 in range(0, G, gseg):
-            g1 = min(g0 + gseg, G)
-            rows_flat = jax.lax.slice_in_dim(
-                rows_all, g0 * 1024 * C, g1 * 1024 * C)
-            lane = jax.lax.slice_in_dim(lane_all, g0, g1)
-            rg = f2[rows_flat].reshape(g1 - g0, 8, 128, C, 128)
-            segs.append(lane_select_multi(rg, lane, n_out))
-        out = segs[0] if len(segs) == 1 else jnp.concatenate(segs, axis=1)
-        return out.reshape(n_out, -1)
+        with jax.named_scope("eqlb_combine"):
+            flat = jnp.pad(flat, ((0, 0), (0, 1)))
+            x = flat[:, refd["elem_c0"]] + flat[:, refd["elem_c1"]]
+            return x.at[:, cm["nfk"]:].add(flat[:, refd["elem_c2"]])
 
     # -------------------------------------------------------------------------
 
@@ -1233,57 +739,19 @@ class EqlbEngine:
         return sol[:, :, :nflux]
 
     def _dense_solve(self, A, b):
-        D = A.shape[-1]
-        # the Pallas solver keeps 2 (D, D, 128) f32 tiles in VMEM; beyond
-        # D ~ 96 that exceeds the ~16 MB budget -> fall back to XLA LU
-        if self.solver == "pallas" and D * D * 128 * 4 * 2 < 12 * 2**20:
-            from ..ops.patch_solve import batched_kkt_solve
-
-            return batched_kkt_solve(A, b)
-        return jnp.linalg.solve(A, b)
-
-    def _dense_solve_pivoted_bl(self, A, b):
-        """Batch-last PIVOTED solve (XLA LU): A (D, D, X), b (D, R, X).
-        For the indefinite weak-symmetry KKT systems: symmetric patches
-        (e.g. the 8-cell stars of crossed meshes) put an exactly-zero pivot
-        in the pivot-free elimination order even though the matrix itself is
-        well conditioned (measured pivot 3e-19 at cond 5e5)."""
-        Ab = jnp.moveaxis(A, -1, 0)
-        bb = jnp.moveaxis(b, -1, 0)
-        return jnp.moveaxis(jnp.linalg.solve(Ab, bb), 0, -1)
+        """Batched pivoted solve (XLA LU): A (..., D, D), b (..., D, R)."""
+        with jax.named_scope("eqlb_dense_solve"):
+            return jnp.linalg.solve(A, b)
 
     def _dense_solve_bl(self, A, b):
-        """Batch-last solve: A (D, D, X), b (D, R, X) -> (D, R, X).
-
-        solver == "pallas_mixed" + f64 operands: mixed-precision iterative
-        refinement — factor/solve on the f32 Pallas kernel (the TPU has no
-        native f64 LU), then one f64 residual-correction pass (two cheap
-        matvec loops).  One step reduces the f32 solve's O(1e-5) relative
-        error to ~f64 level for these small well-conditioned patch systems;
-        since the cached bucket inverses are built THROUGH this routine,
-        the steady-state path inherits the accuracy with no per-call cost
-        beyond f64 arithmetic."""
-        if self.solver in ("pallas", "pallas_mixed"):
-            from ..ops.patch_solve import batched_kkt_solve_bl
-
-            if self.solver == "pallas_mixed" and A.dtype == jnp.float64:
-                f32, f64 = jnp.float32, jnp.float64
-                A32 = A.astype(f32)
-                y = batched_kkt_solve_bl(A32, b.astype(f32)).astype(f64)
-                D = A.shape[0]
-                # explicit j-sum: tiny-D dot_generals relayout-pad on this
-                # backend (see solve_bucket_semiexplicit)
-                for _ in range(self.mixed_refine_steps):
-                    r = b
-                    for j in range(D):
-                        r = r - A[:, j, None, :] * y[j][None]
-                    d = batched_kkt_solve_bl(A32, r.astype(f32)).astype(f64)
-                    y = y + d
-                return y
-            return batched_kkt_solve_bl(A, b)
+        """Batch-last pivoted solve: A (D, D, X), b (D, R, X) -> (D, R, X).
+        Pivoting matters for the indefinite weak-symmetry KKT systems:
+        symmetric patches (e.g. the 8-cell stars of crossed meshes) put an
+        exactly-zero pivot in the natural elimination order even though the
+        matrix itself is well conditioned."""
         Ab = jnp.moveaxis(A, -1, 0)
         bb = jnp.moveaxis(b, -1, 0)
-        return jnp.moveaxis(jnp.linalg.solve(Ab, bb), 0, -1)
+        return jnp.moveaxis(self._dense_solve(Ab, bb), 0, -1)
 
     def _element_data(self, key, d_proj, d_rhs, dv, refd):
         """Canonical per-cell element tensors of one bucket:
@@ -1316,8 +784,7 @@ class EqlbEngine:
         # --- per-cell RHS data ---------------------------------------------------
         # the hat-function index lnode takes only 3 values: contract against
         # each reference slice and blend with one-hot masks instead of
-        # gathering (P, n, ...) tables — TPU tiling pads tiny trailing dims
-        # of materialized gathers by 16-85x (observed OOM on 1M-cell meshes)
+        # materialising gathered (P, n, ...) reference tables
         dp = d_proj[:, cells]  # (n_rhs, P, n, 2, ndg)
         fr = d_rhs[:, cells]  # (n_rhs, P, n, ndg)
         dpJ = jnp.einsum("rpcam,pcab->rpcbm", dp, J)  # (n_rhs, P, n, 2, ndg)
@@ -1423,8 +890,7 @@ class EqlbEngine:
         # adding beta c c^T to the r-block leaves sigma unchanged (B^T c = 0)
         # and makes every pivot of the [sigma | r] ordering structurally
         # nonzero — the bordered-lambda form of the reference
-        # (ev/assembly.hpp:280-305) would hit an exactly-zero pivot in the
-        # pivot-free on-chip factorization (ops.patch_solve)
+        # (ev/assembly.hpp:280-305) has an exactly-zero diagonal entry
         R1 = cvec[:, :, None] * cvec[:, None, :] / (
             jnp.einsum("pq,pq->p", cvec, cvec)[:, None, None]
         )

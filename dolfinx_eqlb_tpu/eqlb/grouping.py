@@ -9,7 +9,7 @@ interior patch and imposes weak symmetry jointly on the union
 ``group_boundary_patches``, ``se/solve_patch_weaksym.hpp:100-143`` re-reads
 the global vector for the modified patch).
 
-TPU-native equivalent: the batched engine SKIPS the per-patch weak-symmetry
+Here: the batched engine SKIPS the per-patch weak-symmetry
 correction for every grouped member (deficient patches and their interior
 partners), then this module applies one small joint correction per group as
 a host-driven post-pass on the global flux rows:

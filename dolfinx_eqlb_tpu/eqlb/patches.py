@@ -1,6 +1,6 @@
 """Vertex-patch extraction into bucketed, padded index tables.
 
-TPU-native replacement for the reference's per-patch C++ machinery
+Batched replacement for the reference's per-patch C++ machinery
 (``ev/Patch.cpp:482-676``, ``se/Patch.cpp:406-635``): the counter-clockwise
 facet walk around each mesh vertex, the patch-local sub-dofmap and the
 orientation prefactors are all *host integer precompute*.  Patches are

@@ -1,6 +1,6 @@
 """Semi-explicit patch equilibration: explicit step + reduced H(div=0) solve.
 
-TPU-native re-design of the reference's SE fast path
+Batched re-design of the reference's SE fast path
 (``se/solve_patch_semiexplt.hpp:211-1163``): instead of solving the full
 per-patch KKT system (flux mass + divergence constraints + multiplier,
 dimension 42-57 at RT2), exploit the *structure of the hierarchic RT
@@ -29,13 +29,13 @@ so the divergence constraints of a patch problem are solved *explicitly*:
            (reference ``ev/solve_patch.hpp:160-213`` re-assembles only on
            patch-type change).
 
-TPU layout: everything is **batch-last** — tensors are (small dims..., P)
-with the patch batch on the 128-lane axis.  Batch-major layouts tile-pad the
-tiny trailing element dims 16-85x and made the data-dependent
-``take_along_axis`` dof permutation alone cost 24 ms / 40k patches; the
-permutation is instead folded into SIX statically pre-permuted reference
-tensors blended with a one-hot over the (lnode, walk-orientation) combo —
-measured at the HBM-bandwidth floor.
+Layout: everything is **batch-last** — tensors are (small dims..., P) with
+the patch batch as the minor (contiguous) axis, so every elementwise stage
+streams whole patch rows.  The data-dependent dof permutation is folded
+into SIX statically pre-permuted reference tensors blended with a one-hot
+over the (lnode, walk-orientation) combo instead of a ``take_along_axis``.
+This layout was chosen for an earlier backend; its cost on the GPU is
+measured per layer in ROADMAP item 1.5.
 
 Everything here is exact linear algebra on the same discrete problem as
 ``eqlb.engine._assemble_bucket`` — the two paths agree to round-off, which
@@ -225,8 +225,7 @@ def mass_matrices_bl(engine, key, dv, refd):
     (and the reduced matrices A_z) on device at table-build time.
 
     The one-hot combo contraction is accumulated per combo: a single fused
-    einsum over the q axis materializes a 6x-size broadcast intermediate
-    (measured: 2.6 GB of HBM traffic at 160k cells)."""
+    einsum over the q axis materializes a 6x-size broadcast intermediate."""
     dt = engine.dtype
     J = dv["J_bl"]  # (n, 2, 2, P)
     detJ = dv["detJ_bl"]  # (n, P)
@@ -237,11 +236,9 @@ def mass_matrices_bl(engine, key, dv, refd):
         wq = (dv["combo_bl"] == q).astype(dt)  # (n, P)
         Mq = refd["MhatC"][q]
         # fully unrolled (a, b, k) broadcast sums instead of einsums /
-        # dot_generals: ANY intermediate carrying the tiny (a, b) dims gets
-        # laid out with them minor and tile-padded 64x by the TPU backend
-        # (the JtJw einsum alone allocated 8 GB at 131k patches -> compile
-        # OOM under the x64 program); here only (n, P) lane arrays and the
-        # (n, nkeep, nkeep, P) accumulator ever exist
+        # dot_generals: only (n, P) arrays and the (n, nkeep, nkeep, P)
+        # accumulator ever exist, never an intermediate with the tiny
+        # (a, b) dims minor
         for a in range(2):
             for b in range(2):
                 JtJw_ab = (J[:, 0, a] * J[:, 0, b]
@@ -267,24 +264,19 @@ def _bx(a, n_rhs):
 def load_moments_bl(engine, key, dprT, dv, refd, src_packed=None):
     """Data-dependent canonical load moments, batch-last with the RHS axis
     FOLDED into the lane dimension: Fv (n, nkeep, X), Fq (n, ndg, X) where
-    X = n_rhs * P (RHS-major).  Multi-RHS work thus rides the 128-lane axis
+    X = n_rhs * P (RHS-major).  Multi-RHS work thus rides the patch axis
     like extra patches — a leading n_rhs axis made every downstream op a
-    per-RHS relayout (measured: the reduced solve went 84 -> 286 ms from
-    1 -> 3 RHS at 1M cells before the fold).
+    per-RHS relayout.
 
     Args: dprT (n_rhs, 3, ndg, nc) — packed [sigma_proj rows 0/1 | rhs] so
     one gather per bucket fetches all per-cell data.  ``src_packed``
     (nc, n_rhs*3*ndg) is the same data CELL-MAJOR: a row gather then fetches
-    all of a cell's dof data in one 512-byte HBM granule instead of one
-    granule per scalar (the minor-axis gather measured 44 ms/RHS at 1M
-    cells — 77% of the whole bucket-solve time).
+    all of a cell's dof data in one contiguous read instead of one read per
+    scalar.
 
     Every contraction is an explicit broadcast-multiply-reduce, never a
-    dot_general: the tiny (6x6)-per-batch-point dots pad catastrophically
-    on the MXU (3x slower, measured), and the fused einsum lowering of the
-    6-combo loop additionally MIScompiled one lane tile on this backend
-    (0.018 absolute error at 0.014 data scale vs the f64 NumPy reference;
-    the broadcast form is bit-clean)."""
+    dot_general: a (6x6) product per batch point is far too small for a
+    matrix unit, and the broadcast form is bandwidth-bound."""
     dt = engine.dtype
     detJ = dv["detJ_bl"]  # (n, P)
     n_rhs, _, ndg, nc = dprT.shape
@@ -298,27 +290,17 @@ def load_moments_bl(engine, key, dprT, dv, refd, src_packed=None):
     combo = _bx(dv["combo_bl"], n_rhs)  # (n, X)
 
     if src_packed is not None:
-        # cell-major row gather: one 512 B granule per patch-cell instance
-        # (source is 128-lane padded; slice back to the logical width)
+        # cell-major row gather: one contiguous row per patch-cell instance
+        # (source is padded to 128 columns; slice back to the logical width)
         w = n_rhs * 3 * ndg
-        rows_all = src_packed[cb.reshape(-1)]
-        if src_packed.dtype != dt:
-            # double-single planes (f64 engine): the row holds [hi | lo]
-            # f32 halves of the f64 data — the gather runs at f32 width
-            # and the exact value is reconstructed after (engine
-            # _equilibrate_impl_T_inner builds this layout)
-            rows = (rows_all[:, :w].astype(dt)
-                    + rows_all[:, w: 2 * w].astype(dt))
-        else:
-            rows = rows_all[:, :w]
+        rows = src_packed[cb.reshape(-1)][:, :w]
         g = jnp.transpose(
             rows.reshape(n, P, n_rhs, 3, ndg), (3, 4, 0, 2, 1)
         ).reshape(3, ndg, n, n_rhs * P)
     else:
-        # 2D-source lane gather fallback (batch-major legacy paths): a >=3D
-        # source makes XLA materialize the output with the patch-cell axis
-        # minor and the tiny data dims tile-padded 28x (OOM at 1M cells);
-        # the flattened (r*3*ndg, nc) form pads only 9 -> 16 sublanes
+        # minor-axis gather from the flattened 2D (r*3*ndg, nc) source: a
+        # >=3D source made XLA materialise the output with the tiny data
+        # dims minor
         g = dprT.reshape(n_rhs * 3 * ndg, nc)[:, cb.reshape(-1)]
         g = g.reshape(n_rhs, 3, ndg, n, P)
         g = jnp.moveaxis(g, 0, 3).reshape(3, ndg, n, n_rhs * P)
@@ -484,11 +466,9 @@ def reduced_system_bl(engine, key, Mc, dv, resid=None, matrix=True):
 
     # ALL indices below are static Python ints: accumulate into Python
     # grids and stack once instead of .at[].add() updates.  Even scalar
-    # indexed adds lower to scatter-add ops, and the TPU backend's scatter
-    # combiner re-batches consecutive ones and expands them into a one-hot
-    # broadcast (Dz, Dz, P, u, u) whose tiny trailing dims tile-pad 64x —
-    # 8 GB at 131k patches, compile OOM under the x64 (pallas_mixed)
-    # program.  The stacked form lowers to pure adds + one concatenate.
+    # indexed adds lower to scatter-add ops, which a scatter combiner may
+    # re-batch into one-hot broadcasts (Dz, Dz, P, u, u).  The stacked form
+    # lowers to pure adds + one concatenate.
     grid = [[None] * Dz for _ in range(Dz)] if matrix else None
     brow = [None] * Dz if resid is not None else None
 
@@ -583,8 +563,7 @@ def solve_bucket_semiexplicit(
 
     Internally the whole pipeline runs on the FOLDED lane axis X = n_rhs*P
     (RHS-major): multi-RHS problems are just more lanes, so every stage is
-    the n_rhs == 1 program at a wider batch — no leading-RHS relayouts
-    (measured: 3-RHS reduced solve 286 -> ~110 ms at 1M cells)."""
+    the n_rhs == 1 program at a wider batch — no leading-RHS relayouts."""
     b = engine.buckets[key]
     st = engine.se_static[key]
     k = engine.k
@@ -602,9 +581,9 @@ def solve_bucket_semiexplicit(
 
     pidx = engine.tables[key]["patch_idx"]  # (n, nkeep) static
     sp_can = sp[pidx]  # (n, nkeep, X)
-    # explicit b-reduce instead of an einsum: the dot_general lowering of
-    # the tiny per-point (nkeep x nkeep) contraction relayouts/pads
-    # (the broadcast form is bandwidth-bound)
+    # explicit b-reduce instead of an einsum: the per-point (nkeep x nkeep)
+    # contraction is too small for a dot_general (the broadcast form is
+    # bandwidth-bound)
     nkeep = Mc.shape[1]
     msp = None
     for bcol in range(nkeep):
@@ -632,9 +611,9 @@ def solve_bucket_semiexplicit(
         y = engine._dense_solve_bl(Ar, br[:, None, :])[:, 0]  # (Dz, X)
     elif "Ainv_bl" in dv:
         # geometry-only system with a cached explicit inverse.  Explicit
-        # j-sum instead of an einsum/dot: the fused dot lowering reads the
-        # sublane tile padding of the small (Dz, Dz, X) operands on this
-        # backend, poisoning the last lane tile with NaN at large X
+        # j-sum instead of an einsum/dot: it guarded against a NaN-writing
+        # miscompile of the fused dot seen on an earlier backend (open:
+        # ROADMAP item 1.5)
         Ainv = dv["Ainv_bl"]
         y = None
         for j in range(Dz):

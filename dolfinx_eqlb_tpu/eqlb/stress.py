@@ -177,7 +177,7 @@ def build_stress_cache(engine, key, dv, refd):
         # ~3 GB at 1M cells)
         E = jnp.zeros((D, C, P), dt)
         E = E.at[2 * Dz + jnp.arange(C), jnp.arange(C)].set(1.0)
-        X = engine._dense_solve_pivoted_bl(S, E)  # (D, C, P)
+        X = engine._dense_solve_bl(S, E)  # (D, C, P)
         return {"Sinv_c": X[: 2 * Dz], "Bsym_bl": Bsym}
     return {"S_stress": S, "Bsym_bl": Bsym}
 
@@ -276,7 +276,7 @@ def weak_symmetry_bucket_bl(engine, key, sol2_bl, facet_kind2, dv, refd,
         Sr = Sr + (sing * diag_scale)[None, None] * v[:, None] * v[None]
         rhs = jnp.zeros((D, P), dt).at[2 * Dz : 2 * Dz + C].set(g)
         rhs = jnp.where(free, rhs, 0.0)
-        y = engine._dense_solve_pivoted_bl(Sr, rhs[:, None, :])[:, 0]  # (D, P)
+        y = engine._dense_solve_bl(Sr, rhs[:, None, :])[:, 0]  # (D, P)
         y0, y1 = y[:Dz], y[Dz : 2 * Dz]
 
     delta = jnp.zeros((2, nflux, P), dt)

@@ -1,6 +1,6 @@
 """Cell-local L2 projection and local solvers.
 
-TPU-native equivalent of the reference's local-solver path
+Device-resident equivalent of the reference's local-solver path
 (``cpp/dolfinx_eqlb/base/local_solver.hpp:37-187`` +
 ``python/dolfinx_eqlb/lsolver``): instead of a per-cell Eigen factorisation
 loop, all cells are solved in one batched XLA program.

@@ -1,6 +1,6 @@
 """Triangle-mesh topology and geometry as flat NumPy index tables.
 
-TPU-native replacement for the DOLFINx mesh objects the reference leans on
+Batched replacement for the DOLFINx mesh objects the reference leans on
 (connectivities 0<->1<->2 created in ``FluxEquilibrator.py:52-67``, facet
 permutations via ``get_facet_permutations`` in
 ``se/solve_patch_semiexplt.hpp:296-424``): all connectivity is computed once

@@ -1,22 +1,28 @@
 """ctypes loader for the native host-precompute library.
 
-Compiles ``topology.cpp`` on first use (g++ -O3 -shared -fPIC, cached next
-to the source); all entry points have NumPy fallbacks in ``mesh.topology``
-and ``eqlb.patches``, so the package works without a toolchain.
+Compiles ``topology.cpp`` on first use (g++ -O3 -shared -fPIC) into
+``build/libeqlbtopo-<hash>.so`` next to the source, where ``<hash>`` is the
+SHA-256 of the source: an edited source always gets a fresh build, and a
+checkout never loads a library built from other code.  The build directory
+is ignored by git.  All entry points have NumPy fallbacks in
+``mesh.topology`` and ``eqlb.patches``, so the package works without a
+toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
 _SRC = os.path.join(_HERE, "topology.cpp")
-_LIB = os.path.join(_HERE, "libeqlbtopo.so")
+_BUILD = os.path.join(_HERE, "build")
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -27,6 +33,32 @@ _u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
+def library_path() -> str:
+    """Path of the library built from the current ``topology.cpp``."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD, f"libeqlbtopo-{digest}.so")
+
+
+def _build(path: str):
+    """Compile into a temporary file of the build directory and rename it
+    into place, so concurrent first uses never load a half-written file."""
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+             "-o", tmp, _SRC],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _load():
     global _lib, _tried
     with _lock:
@@ -34,16 +66,10 @@ def _load():
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_LIB)) or (
-                os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-            ):
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     "-o", _LIB, _SRC],
-                    check=True,
-                    capture_output=True,
-                )
-            lib = ctypes.CDLL(_LIB)
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
             lib.build_facets.restype = ctypes.c_int64
             lib.build_facets.argtypes = [
                 ctypes.c_int64, _i32, ctypes.c_int64, _i32, _i32, _i32, _i32,
@@ -59,11 +85,6 @@ def _load():
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, _i32, _i32, _u8,
             ]
-            lib.shaped_fill.restype = ctypes.c_int
-            lib.shaped_fill.argtypes = [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, _i32, _i32, _i32,
-            ]
             lib.perm_signs_fill.restype = ctypes.c_int
             lib.perm_signs_fill.argtypes = [
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -71,7 +92,7 @@ def _load():
                 _f64, _i32, _f64,
             ]
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             _lib = None
         return _lib
 
@@ -114,22 +135,6 @@ def combine_fill(ndofs: int, off: int, gdofs: np.ndarray,
     if rc != 0:
         raise RuntimeError("dof with more than 3 patch contributions")
     return True
-
-
-def shaped_tables(src: np.ndarray, W: int, R: int):
-    """Native combine index-table shaping (see topology.cpp shaped_fill):
-    src (M, C) int32 -> (rows_flat (Mpad*C,), lane (G, C, 8, 128)) int32, or
-    None when the library is unavailable (caller falls back to NumPy)."""
-    lib = _load()
-    if lib is None:
-        return None
-    M, C = src.shape
-    Mpad = -(-M // 1024) * 1024
-    rows = np.empty(Mpad * C, dtype=np.int32)
-    lane = np.empty((Mpad // 1024, C, 8, 128), dtype=np.int32)
-    lib.shaped_fill(M, C, W, R,
-                    np.ascontiguousarray(src, dtype=np.int32), rows, lane)
-    return rows, lane
 
 
 def perm_signs(cells, entry_loc, exit_loc, dof_signs, k, kk1):

@@ -1,7 +1,7 @@
 // Native host precompute for dolfinx_eqlb_tpu.
 //
 // The reference's native layer (cpp/dolfinx_eqlb) does per-patch assembly and
-// solves; in the TPU design all floating-point work lives in XLA, so the
+// solves; in this design all floating-point work lives in XLA, so the
 // native layer owns the integer-heavy mesh precompute instead: facet
 // extraction and the vertex-patch walk (the analogue of
 // ev/Patch.cpp:222-309 fcti_to_celli and se/Patch.cpp:406-635).
@@ -127,27 +127,6 @@ int combine_fill(int64_t ndofs, int64_t Ppad, int64_t nflux, int64_t off,
         if (cur[d] >= 3) return -1;
         src[3 * d + cur[d]++] = static_cast<int32_t>(off + f * Ppad + p);
       }
-    }
-  }
-  return 0;
-}
-
-// Combine index-table shaping: src (M, C) int32 flat positions ->
-//   rows_flat (Mpad * C) int32 : src[m, c] / W
-//   lane      (G, C, 8, 128)   : (src[m, c] % W) * R
-// with Mpad = ceil(M / 1024) * 1024, G = Mpad / 1024; pad entries use flat
-// position 0 (row 0, lane 0) and are sliced away by the caller.
-int shaped_fill(int64_t M, int64_t C, int64_t W, int64_t R,
-                const int32_t* src, int32_t* rows_flat, int32_t* lane) {
-  int64_t Mpad = ((M + 1023) / 1024) * 1024;
-  for (int64_t m = 0; m < Mpad; ++m) {
-    int64_t g = m / 1024, t = m % 1024;
-    int64_t s8 = t / 128, l = t % 128;
-    for (int64_t c = 0; c < C; ++c) {
-      int32_t s = (m < M) ? src[m * C + c] : 0;
-      rows_flat[m * C + c] = static_cast<int32_t>(s / W);
-      lane[((g * C + c) * 8 + s8) * 128 + l] =
-          static_cast<int32_t>((s % W) * R);
     }
   }
   return 0;

@@ -1,14 +1,16 @@
-"""Multi-chip equilibration via patch-parallel SPMD.
+"""Multi-GPU equilibration via patch-parallel SPMD.
 
 The reference scales through MPI-distributed DOLFINx meshes: each rank owns
 its vertices' patches and the (rare) shared data moves via ghost updates
-(SURVEY.md section 2.7).  The TPU-native equivalent is data parallelism over
-the *patch batch*: every bucket's patch axis is sharded across a 1-D device
-mesh; the per-patch assembly + batched LU are embarrassingly parallel, and
-the only communication is the final scatter-add into the replicated global
-flux vector (each facet dof receives contributions from exactly the two
-patches of its facet's endpoints), which GSPMD lowers to one all-reduce over
-ICI.  Pad patches scatter out of bounds and are dropped.
+(SURVEY.md section 2.7).  Here the equivalent is data parallelism over the
+*patch batch*: every bucket's patch axis is sharded across a 1-D device
+mesh; the per-patch assembly and batched solves are embarrassingly
+parallel, and the only communication is the final combine into the
+replicated global flux vector (each facet dof receives contributions from
+exactly the two patches of its facet's endpoints), which GSPMD lowers to
+collectives that XLA hands to NCCL.  On one host the GPUs are joined all to
+all by NVLink, so the 1-D mesh follows the algorithm alone.  Pad patches
+scatter out of bounds and are dropped.
 """
 
 from __future__ import annotations
@@ -77,13 +79,6 @@ class ShardedEqlbEngine:
         equilibrators.py)."""
         eng = self.engine
         repl = NamedSharding(self.mesh, P())
-        # the n_rhs > 1 combine index tables are uploaded lazily by the
-        # engine — mirror any new ones into the replicated table pytree
-        eng._ensure_combine_tables(int(np.asarray(sigma_proj_dofs).shape[0]))
-        _, refd = eng._device_tables()
-        for name, a in refd.items():
-            if name not in self.refd:
-                self.refd[name] = jax.device_put(a, repl)
         ws_skip = None
         if weak_symmetry and ws_skip_nodes is not None and len(ws_skip_nodes):
             shard_p = NamedSharding(self.mesh, P(self.axis))

@@ -5,8 +5,8 @@ The reference's user-facing deliverable is XDMF written with
 writes the primal solution, projected + equilibrated fluxes; the adaptive
 demos write per-level error fields).  This module provides the equivalent for
 :class:`~dolfinx_eqlb_tpu.mesh.TriMesh` data without external mesh-IO
-dependencies: VTU is plain XML (always available), XDMF uses ``h5py`` for the
-heavy arrays when present and falls back to inline-XML data items otherwise.
+dependencies: VTU is plain XML (always available), XDMF keeps the heavy
+arrays in an HDF5 file and needs ``h5py``.
 
 Data conventions
 ----------------
@@ -106,70 +106,53 @@ def write_vtu(path, mesh, point_data=None, cell_data=None) -> str:
 
 
 def write_xdmf(path, mesh, point_data=None, cell_data=None) -> str:
-    """Write an XDMF file (+ sibling .h5 when h5py is available, else inline
-    XML data) — the reference's deliverable format for ParaView."""
+    """Write an XDMF file with a sibling .h5 holding the data — the
+    reference's deliverable format for ParaView.  Needs ``h5py``; without
+    it, use :func:`write_vtu`, which has no dependency beyond NumPy."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "write_xdmf needs h5py, which is not installed; write_vtu "
+            "writes the same data as a self-contained ParaView .vtu file"
+        ) from e
     point_data = point_data or {}
     cell_data = cell_data or {}
     pts = np.asarray(mesh.points, dtype=np.float64)
     cells = np.asarray(mesh.cells, dtype=np.int64)
-    nv, nc = mesh.num_vertices, cells.shape[0]
+    nc = cells.shape[0]
 
-    try:
-        import h5py
-    except ImportError:
-        h5py = None
-
-    items = {}
-    if h5py is not None:
-        h5path = os.path.splitext(path)[0] + ".h5"
-        h5name = os.path.basename(h5path)
-        with h5py.File(h5path, "w") as h5:
-            h5["/mesh/points"] = pts
-            h5["/mesh/cells"] = cells
-            for name, arr in point_data.items():
-                h5["/point/" + name] = np.asarray(arr, dtype=np.float64)
-            for name, arr in cell_data.items():
-                h5["/cell/" + name] = np.asarray(arr, dtype=np.float64)
-
-        def item(arr, key):
-            dims = " ".join(str(d) for d in arr.shape)
-            num = "Int" if arr.dtype.kind == "i" else "Float"
-            prec = arr.dtype.itemsize
-            return (
-                f'<DataItem Dimensions="{dims}" NumberType="{num}" '
-                f'Precision="{prec}" Format="HDF">{h5name}:{key}</DataItem>'
-            )
-
-        items["points"] = item(pts, "/mesh/points")
-        items["cells"] = item(cells, "/mesh/cells")
+    h5path = os.path.splitext(path)[0] + ".h5"
+    h5name = os.path.basename(h5path)
+    with h5py.File(h5path, "w") as h5:
+        h5["/mesh/points"] = pts
+        h5["/mesh/cells"] = cells
         for name, arr in point_data.items():
-            items["p_" + name] = item(
-                np.asarray(arr, dtype=np.float64), "/point/" + name
-            )
+            h5["/point/" + name] = np.asarray(arr, dtype=np.float64)
         for name, arr in cell_data.items():
-            items["c_" + name] = item(
-                np.asarray(arr, dtype=np.float64), "/cell/" + name
-            )
-    else:
-        def item(arr, _key=None):
-            arr = np.asarray(arr)
-            dims = " ".join(str(d) for d in arr.shape)
-            num = "Int" if arr.dtype.kind == "i" else "Float"
-            body = "\n".join(
-                " ".join(repr(x) for x in np.atleast_1d(row))
-                for row in (arr if arr.ndim > 1 else arr[:, None])
-            )
-            return (
-                f'<DataItem Dimensions="{dims}" NumberType="{num}" '
-                f'Format="XML">\n{body}\n</DataItem>'
-            )
+            h5["/cell/" + name] = np.asarray(arr, dtype=np.float64)
 
-        items["points"] = item(pts)
-        items["cells"] = item(cells)
-        for name, arr in point_data.items():
-            items["p_" + name] = item(np.asarray(arr, dtype=np.float64))
-        for name, arr in cell_data.items():
-            items["c_" + name] = item(np.asarray(arr, dtype=np.float64))
+    def item(arr, key):
+        dims = " ".join(str(d) for d in arr.shape)
+        num = "Int" if arr.dtype.kind == "i" else "Float"
+        prec = arr.dtype.itemsize
+        return (
+            f'<DataItem Dimensions="{dims}" NumberType="{num}" '
+            f'Precision="{prec}" Format="HDF">{h5name}:{key}</DataItem>'
+        )
+
+    items = {
+        "points": item(pts, "/mesh/points"),
+        "cells": item(cells, "/mesh/cells"),
+    }
+    for name, arr in point_data.items():
+        items["p_" + name] = item(
+            np.asarray(arr, dtype=np.float64), "/point/" + name
+        )
+    for name, arr in cell_data.items():
+        items["c_" + name] = item(
+            np.asarray(arr, dtype=np.float64), "/cell/" + name
+        )
 
     def attr(name, arr, center, it):
         atype = "Scalar" if np.asarray(arr).ndim == 1 else "Vector"

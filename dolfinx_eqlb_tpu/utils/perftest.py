@@ -240,7 +240,7 @@ def run_perftest(
 
                 def run_eq(eq=eq):
                     eq.equilibrate_fluxes()
-                    np.asarray(eq.list_flux[0].x[:4])  # device sync
+                    eq.list_flux[0].x.block_until_ready()
 
                 run_eq()  # warm-up/compile
                 tmin, tmax, _ = _timeit(run_eq, repeats)

@@ -1,104 +1,94 @@
-"""Combine-path equivalence: off-TPU the engine routes the global
-accumulation through the pure-XLA element gather (the Pallas lane-select
-row path only runs in interpret mode there, ~14x slower); this test pins
-the interpret-mode row+kernel path against it so the TPU kernels keep CPU
-coverage (EQLB_FORCE_LANE_SELECT restores them off-TPU)."""
-
-import os
+"""Dof combine: the engine accumulates the global RT dofs by an element
+gather over the concatenated per-bucket solutions (engine._combine_flat).
+It is pinned here against the plain scatter-add ``x.at[:, gdofs].add(sol)``
+of the same per-bucket solutions, and the f32 engine against the f64 one."""
 
 import numpy as np
+import jax
+import jax.numpy as jnp
 import pytest
 
 from dolfinx_eqlb_tpu.eqlb.engine import EqlbEngine
 from dolfinx_eqlb_tpu.eqlb.patches import build_patches
+from dolfinx_eqlb_tpu.eqlb.semiexplicit import solve_bucket_semiexplicit
 from dolfinx_eqlb_tpu.fem import FunctionSpace
 from dolfinx_eqlb_tpu.mesh import unit_square
 
 
+def _random_data(msh, k, n_rhs, seed):
+    rng = np.random.default_rng(seed)
+    nc, ndg = msh.num_cells, k * (k + 1) // 2
+    dp = rng.normal(size=(n_rhs, nc, 2, ndg))
+    dr = rng.normal(size=(n_rhs, nc, ndg))
+    fk = np.where(msh.is_boundary_facet, 1, 0).astype(np.int8)[None].repeat(
+        n_rhs, 0)
+    bv = np.zeros((n_rhs, msh.num_facets, k))
+    return dp, dr, fk, bv
+
+
 @pytest.mark.parametrize("k", [2, 3, 4])
 @pytest.mark.parametrize("n_rhs", [1, 2, 3, 5])
-def test_lane_select_matches_elem_gather(n_rhs, k, monkeypatch):
-    """k = 2, 4 run the paired patch-major tables (engine._patch_major);
-    k = 3 exercises the flux-major per-dof fallback."""
+def test_elem_combine_matches_scatter_add(n_rhs, k):
     msh = unit_square(5)
     V = FunctionSpace(msh, "RT", k)
-    rng = np.random.default_rng(3)
-    nc, ndg = msh.num_cells, k * (k + 1) // 2
-    dp = rng.normal(size=(n_rhs, nc, 2, ndg))
-    dr = rng.normal(size=(n_rhs, nc, ndg))
-    fk = np.where(msh.is_boundary_facet, 1, 0).astype(np.int8)[None].repeat(
-        n_rhs, 0)
-    bv = np.zeros((n_rhs, msh.num_facets, k))
-
+    dp, dr, fk, bv = _random_data(msh, k, n_rhs, 3)
     eng = EqlbEngine(V, build_patches(msh))
-    assert eng._patch_major == (k % 2 == 0)
-    x_elem = np.asarray(eng.equilibrate(dp, dr, fk, bv))
+    dev, refd = eng._device_tables()
 
-    monkeypatch.setitem(os.environ, "EQLB_FORCE_LANE_SELECT", "1")
-    # pin the PLAIN lane-select path (the f64 1-field case would otherwise
-    # route through the double-single combine, covered separately below)
-    monkeypatch.setitem(os.environ, "EQLB_NO_DS_COMBINE", "1")
-    eng2 = EqlbEngine(V, build_patches(msh))
-    x_ls = np.asarray(eng2.equilibrate(dp, dr, fk, bv))
-    assert np.abs(x_elem - x_ls).max() < 1e-11
+    dprT = jnp.concatenate(
+        [jnp.moveaxis(jnp.asarray(dp), 1, -1),
+         jnp.moveaxis(jnp.asarray(dr), 1, -1)[:, None]], axis=1)
+    gdofs = {key: jnp.asarray(t["gdofs"]) for key, t in eng.tables.items()}
+
+    @jax.jit
+    def both(dprT, fk, bv, dev, refd, gdofs):
+        flats = []
+        x_ref = jnp.zeros((n_rhs, V.ndofs))
+        for key in sorted(eng.buckets):
+            sol_bl = solve_bucket_semiexplicit(eng, key, dprT, fk, bv,
+                                               dev[key], refd)  # (r, nflux, P)
+            flats.append(sol_bl.reshape(n_rhs, -1))
+            # pad rows of gdofs point past ndofs: the scatter drops them
+            x_ref = x_ref.at[:, gdofs[key]].add(jnp.moveaxis(sol_bl, -1, 1))
+        return eng._combine_flat(jnp.concatenate(flats, axis=1), refd), x_ref
+
+    x_elem, x_ref = both(dprT, jnp.asarray(fk), jnp.asarray(bv), dev, refd,
+                         gdofs)
+    scale = float(jnp.abs(x_ref).max())
+    assert float(jnp.abs(x_elem - x_ref).max()) < 1e-13 * scale
+
+    # and the whole fused program agrees (its load stage differs only in
+    # gather layout for n_rhs > 1)
+    x_eq = eng.equilibrate(dp, dr, fk, bv)
+    assert float(jnp.abs(x_eq - x_ref).max()) < 1e-11 * scale
 
 
-@pytest.mark.parametrize("k", [2, 4])
-def test_ds_combine_matches_elem_gather(k, monkeypatch):
-    """The double-single combine (f64 flat as 2Sum-compensated (hi, lo)
-    f32 lane planes, engine._ds_combine) reproduces the f64 element-gather
-    combine to the ~2^-48 split residual."""
-    msh = unit_square(5)
+@pytest.mark.parametrize("k", [2, 3])
+def test_f32_engine_matches_f64(k):
+    """The f32 engine agrees with the f64 one at the tolerance chip_smoke.py
+    states for its f32-vs-f64 check: max|x32 - x64| <= 1e-3 max|x64|."""
+    msh = unit_square(6)
     V = FunctionSpace(msh, "RT", k)
-    rng = np.random.default_rng(11)
-    nc, ndg = msh.num_cells, k * (k + 1) // 2
-    dp = rng.normal(size=(1, nc, 2, ndg))
-    dr = rng.normal(size=(1, nc, ndg))
-    fk = np.where(msh.is_boundary_facet, 1, 0).astype(np.int8)[None]
-    bv = np.zeros((1, msh.num_facets, k))
-
-    eng = EqlbEngine(V, build_patches(msh))
-    x_elem = np.asarray(eng.equilibrate(dp, dr, fk, bv))
-
-    monkeypatch.setitem(os.environ, "EQLB_FORCE_LANE_SELECT", "1")
-    eng2 = EqlbEngine(V, build_patches(msh))
-    assert eng2._use_ds_combine(1)
-    x_ds = np.asarray(eng2.equilibrate(dp, dr, fk, bv))
-    scale = np.abs(x_elem).max()
-    assert np.abs(x_elem - x_ds).max() < 1e-12 * scale
+    dp, dr, fk, bv = _random_data(msh, k, 2, 5)
+    xs = {}
+    for dt in (jnp.float32, jnp.float64):
+        eng = EqlbEngine(V, build_patches(msh), dtype=dt)
+        xs[dt] = np.asarray(eng.equilibrate(dp, dr, fk, bv,
+                                            weak_symmetry=True))
+        assert xs[dt].dtype == np.dtype(dt)
+    x32, x64 = xs[jnp.float32].astype(np.float64), xs[jnp.float64]
+    assert np.isfinite(x32).all()
+    assert np.abs(x32 - x64).max() <= 1e-3 * np.abs(x64).max()
 
 
-@pytest.mark.parametrize("n_rhs,cap_packs,groups", [
-    (3, 0, [1, 1, 1]),   # nothing fits: per-field passes
-    (3, 2, [1, 1, 1]),   # measured: 3 x R1 beats R2 + R1 past the cliff
-    (4, 2, [2, 2]),      # pairwise packs
-    (5, 2, [2, 1, 1, 1]),
-])
-def test_split_pack_groups_match(n_rhs, cap_packs, groups, monkeypatch):
-    """Cache-cliff dispatch: cap the packed-combine source threshold so the
-    multi-field routing splits into smaller packs / per-field passes (the
-    1M-cell TPU regime — PROFILE_COMBINE_STRATEGIES.json measured one
-    R = 3 pass at 180 ms vs 125 ms split) and pin the result against the
-    element-gather default."""
-    k = 2
-    msh = unit_square(5)
-    V = FunctionSpace(msh, "RT", k)
-    rng = np.random.default_rng(7)
-    nc, ndg = msh.num_cells, k * (k + 1) // 2
-    dp = rng.normal(size=(n_rhs, nc, 2, ndg))
-    dr = rng.normal(size=(n_rhs, nc, ndg))
-    fk = np.where(msh.is_boundary_facet, 1, 0).astype(np.int8)[None].repeat(
-        n_rhs, 0)
-    bv = np.zeros((n_rhs, msh.num_facets, k))
-
-    eng = EqlbEngine(V, build_patches(msh))
-    x_elem = np.asarray(eng.equilibrate(dp, dr, fk, bv))
-
-    monkeypatch.setitem(os.environ, "EQLB_FORCE_LANE_SELECT", "1")
-    eng2 = EqlbEngine(V, build_patches(msh))
-    L = eng2._combine["Lpad"]
-    monkeypatch.setattr(EqlbEngine, "_pack_src_bytes_max",
-                        cap_packs * L * 4.0)
-    assert eng2._pack_groups(n_rhs) == groups
-    x_split = np.asarray(eng2.equilibrate(dp, dr, fk, bv))
-    assert np.abs(x_elem - x_split).max() < 1e-11
+@pytest.mark.parametrize("value", ["pallas", "pallas_mixed", "lu"])
+def test_removed_solver_values_raise(value):
+    """The batched solves always run through XLA: assigning any other
+    solver (the removed "pallas" / "pallas_mixed" kernels included) raises
+    instead of falling back quietly."""
+    msh = unit_square(2)
+    eng = EqlbEngine(FunctionSpace(msh, "RT", 2), build_patches(msh))
+    with pytest.raises(ValueError, match="removed"):
+        eng.solver = value
+    eng.solver = "xla"
+    assert eng.solver == "xla"

@@ -1,4 +1,4 @@
-"""Geometric-multigrid preconditioning (fem.multigrid) — the TPU-native
+"""Geometric-multigrid preconditioning (fem.multigrid) — the device-resident
 stand-in for the reference's PETSc solver configs (CG+BoomerAMG for SPD,
 MUMPS/superlu_dist for the mixed saddle systems,
 ``python/test/performance/perftest_basics.py:34-160``).
